@@ -1,9 +1,9 @@
 // Native I/O runtime for cudaparticlesfoam_tpu.
 //
 // The reference's host-side runtime is C++ (ascii VTU writers in
-// cuda/utils.cpp, OpenFOAM file parsing via the OpenFOAM libs); this is the
-// TPU build's native equivalent, exposed through ctypes (no pybind11 in the
-// image).  Two hot paths:
+// cuda/utils.cpp, OpenFOAM file parsing via the OpenFOAM libs); this is
+// this build's native equivalent, exposed through ctypes (no pybind11
+// needed).  Two hot paths:
 //   * write_particles_vtu: the exact reference VTU schema
 //     (utils.cpp:144-283) at fwrite speed — a 4M-particle frame is ~20x
 //     faster than the numpy text path.

@@ -2,7 +2,7 @@
 //
 // The reference's tet decomposition runs inside OpenFOAM's C++
 // (polyMeshTetDecomposition::findSharedBasePoint / cellTetIndices,
-// consumed at src/initCuda.H:86-110); this is the TPU build's native
+// consumed at src/initCuda.H:86-110); this is this build's native
 // equivalent for the quality-driven base-point search — the single
 // hottest host step of a cold case load (91 s of numpy temporaries at
 // the TJunction coupled scale, 248k cells / 744k quad faces).  Per-face

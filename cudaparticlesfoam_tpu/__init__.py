@@ -1,10 +1,10 @@
-"""cudaparticlesfoam_tpu — TPU-native Lagrangian particle advection.
+"""cudaparticlesfoam_tpu — Lagrangian particle advection in JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 simzero/cudaParticlesFoam (GPU/OptiX passive particle tracking for
 OpenFOAM): tetrahedral mesh particle advection with Brownian diffusion,
 barycentric tet-walk cell location, specular wall reflection, OpenFOAM
-case compatibility, and multi-chip scaling via jax.sharding.
+case compatibility, and multi-device scaling via jax.sharding.
 """
 
 from .mesh import TetMesh, box_mesh, from_arrays, read_dataset, replace_velocity

@@ -39,7 +39,7 @@ class ParticlesConfig:
     # (RTX env -> -DConvexPoly, applications/*/Make/options:1-5); here it
     # is a case option: "bary" (RTX build) | "convex" (ConvexPoly build)
     locate_mode: str = "bary"
-    # new, TPU-build options
+    # options beyond the reference's dictionary
     rng_seed: int = 0
     seeding_method: str = "reference"   # bit-exact owl LCG positions
     seeding_file: str | None = None

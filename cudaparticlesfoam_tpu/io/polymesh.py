@@ -1,6 +1,6 @@
 """OpenFOAM polyMesh reader/writer + tetrahedralization bridge.
 
-This is the TPU-native replacement for the solver-embedded OpenFOAM->CUDA
+This is the XLA replacement for the solver-embedded OpenFOAM->CUDA
 mesh bridge (``src/initCuda.H:74-124``): read ``constant/polyMesh`` directly
 in Python, compute OpenFOAM-identical face/cell centres, decompose every
 cell into tets around its centre (the reference calls

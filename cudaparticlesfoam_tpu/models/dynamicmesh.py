@@ -12,7 +12,7 @@ oscillatingLinearMotion, oscillatingRotatingMotion).  Point-smoothing
 motion solvers (velocityLaplacian etc.) and topology changes are out of
 scope and raise.
 
-TPU-first split of the work:
+Device-first split of the work:
 * point motion + FV metric rebuild: host numpy once per Eulerian step
   (topology never changes; at tutorial scale this is milliseconds);
 * the particle walk tables refresh ON DEVICE

@@ -1,6 +1,6 @@
 """Unstructured finite-volume operators and linear solvers in JAX.
 
-The TPU-native foundation for the flow solvers (:mod:`.simple`,
+The XLA foundation for the flow solvers (:mod:`.simple`,
 :mod:`.pimple`) that replace the reference's OpenFOAM side
 (``applications/cudaParticlesPimpleFoam/{UEqn.H,pEqn.H}``): collocated
 FV on the same ``constant/polyMesh``, matrix-free LDU operators assembled
@@ -310,12 +310,14 @@ def convection_correction(m: FvMesh, flux, phi, bc: BoundaryCoeffs, scheme: str,
 
     if scheme == "linearUpwind":
         d_up = m.cf[:n_int] - m.cc[up]
-        phi_ho = phi_up + jnp.einsum("fcd,fd->fc", grad[up], d_up)
+        phi_ho = phi_up + jnp.einsum("fcd,fd->fc", grad[up], d_up,
+                                     precision=lax.Precision.HIGHEST)
     elif scheme == "limitedLinear":
         d = m.cc[nei] - m.cc[own]
         # r in upwind orientation: d points up->down for F>=0, down->up else
         dsign = jnp.where(f_i >= 0.0, 1.0, -1.0)[:, None]
-        dgrad = jnp.einsum("fcd,fd->fc", grad[up], d) * dsign
+        dgrad = jnp.einsum("fcd,fd->fc", grad[up], d,
+                           precision=lax.Precision.HIGHEST) * dsign
         denom = phi_dn - phi_up
         r = 2.0 * dgrad / jnp.where(jnp.abs(denom) > 1e-30, denom, 1e-30) - 1.0
         psi = jnp.clip(2.0 * r, 0.0, 1.0)

@@ -41,6 +41,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from ..io import foamfile, polymesh
 from ..utils.pytree import pytree_dataclass
@@ -232,7 +233,8 @@ def correct(fvo: FvOptions, m: fv.FvMesh, u, rau, psum=None):
     gsum = psum if psum is not None else (lambda x: x)
     w = fvo.mvf_mask * m.vol
     vz = gsum(jnp.sum(w)) + 1e-300
-    ubar_star = gsum(jnp.sum(w * (u @ fvo.mvf_dir))) / vz
+    ubar_star = gsum(jnp.sum(
+        w * jnp.dot(u, fvo.mvf_dir, precision=lax.Precision.HIGHEST))) / vz
     rau_ave = gsum(jnp.sum(w * rau)) / vz
     dgrad = fvo.mvf_relax * (fvo.mvf_mag - ubar_star) / rau_ave
     u = u + (fvo.mvf_mask * rau * dgrad)[:, None] * fvo.mvf_dir[None, :]

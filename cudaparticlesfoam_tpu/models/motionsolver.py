@@ -13,7 +13,7 @@ The reference's coupled solver accepts any OpenFOAM ``dynamicFvMesh``
 * ``velocityComponentLaplacian x`` — scalar single-component variant
   (OpenFOAM's movingCone tutorial)
 
-This is the TPU build's equivalent: the motion Laplacian is assembled
+This is this build's equivalent: the motion Laplacian is assembled
 with the existing FV machinery (zero-flux :func:`~.fv.assemble_transport`
 == pure orthogonal diffusion) and solved per component with the
 Jacobi-CG solver on device; cell values go to mesh points by

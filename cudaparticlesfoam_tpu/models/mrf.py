@@ -1,6 +1,6 @@
 """Multiple reference frames (MRF).
 
-TPU-native equivalent of OpenFOAM's ``IOMRFZoneList`` as the reference
+XLA equivalent of OpenFOAM's ``IOMRFZoneList`` as the reference
 solver uses it (``cudaParticlesPimpleFoam/UEqn.H:3-8`` —
 ``MRF.correctBoundaryVelocity(U)``, ``MRF.DDt(U)``;
 ``pEqn.H:12-20`` — ``MRF.makeRelative(phiHbyA)``, ``MRF.zeroFilter``;
@@ -27,6 +27,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from ..io import foamfile, polymesh
 from ..utils.pytree import pytree_dataclass
@@ -130,7 +131,7 @@ def frame_flux(mrf: MRFZones, m: fv.FvMesh):
     """Rotational face flux ``(Omega x (Cf - origin)) . Sf`` on the
     rotational faces (zero elsewhere)."""
     vr = jnp.cross(mrf.face_omega, m.cf - mrf.face_origin)
-    return jnp.einsum("ij,ij->i", vr, m.sf)
+    return jnp.einsum("ij,ij->i", vr, m.sf, precision=lax.Precision.HIGHEST)
 
 
 def make_relative(mrf: MRFZones, m: fv.FvMesh, flux):

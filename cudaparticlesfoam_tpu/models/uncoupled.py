@@ -1,6 +1,6 @@
 """Uncoupled (frozen-field) particle tracking driver.
 
-The TPU-native equivalent of ``cudaParticlesUncoupledFoam``
+The XLA equivalent of ``cudaParticlesUncoupledFoam``
 (``applications/cudaParticlesUncoupledFoam/cudaParticlesUncoupledFoam.C:60-89``):
 read the latest converged ``U``, build the tet mesh + particle state, then
 run ``nCycles = ceil(deltaT/dt)`` Lagrangian sub-steps of the frozen field

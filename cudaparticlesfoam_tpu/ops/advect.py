@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..mesh import TetMesh
 from .geometry import bary_from_tinv
@@ -28,7 +29,8 @@ def interp_velocity(mesh: TetMesh, pos, tet_id, vel_prev, mode: str):
     if mode == VERTEX_VELOCITY:
         bary = bary_from_tinv(pos, mesh.tet_a[safe], mesh.tet_tinv[safe])
         vverts = mesh.vert_vel[mesh.tets[safe]]          # [n,4,3]
-        return jnp.einsum("nk,nkj->nj", bary, vverts)
+        return jnp.einsum("nk,nkj->nj", bary, vverts,
+                          precision=lax.Precision.HIGHEST)
     if mode == CONSTANT_VELOCITY:
         return vel_prev
     raise ValueError(f"unknown velocity interpolation mode {mode!r}")

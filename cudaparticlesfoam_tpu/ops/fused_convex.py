@@ -30,6 +30,7 @@ per-tet velocity appended (see :func:`cx_table`); f32 needs < 2^24 tets.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -51,9 +52,9 @@ def cx_table(mesh: TetMesh):
     stage only needs an exit CLASSIFICATION; the rare stage re-traces with
     the full tables, where face ids live)."""
     if mesh.tet_row_cxe is not None:
-        # precomputed mesh field: enters jit as a parameter (building the
-        # table as an in-jit intermediate let XLA pick a column-major
-        # layout with no parameter placement — 3.5x slower stream gather)
+        # precomputed mesh field: enters jit as a parameter (an in-jit
+        # intermediate leaves XLA free to pick a column-major layout,
+        # which the row gather pays for)
         return mesh.tet_row_cxe
     row = mesh.tet_row_cx
     return jnp.concatenate(
@@ -96,19 +97,16 @@ def _row_tables(rows):
 _NO_INLET = -(2 ** 30)
 
 
-def mega_cycle(mesh: TetMesh, tab, m, rng_key, step, cfg, dt,
-               lane_offset0=0):
+def mega_cycle(mesh: TetMesh, tab, m, rng_key, step, cfg, dt):
     n = m.shape[0]
     if n % BLOCK:
         pad = BLOCK - n % BLOCK
         mp = jnp.pad(m, ((0, pad), (0, 0)))
-        return _cycle_aligned(mesh, tab, mp, rng_key, step, cfg, dt,
-                              lane_offset0)[:n]
-    return _cycle_aligned(mesh, tab, m, rng_key, step, cfg, dt, lane_offset0)
+        return _cycle_aligned(mesh, tab, mp, rng_key, step, cfg, dt)[:n]
+    return _cycle_aligned(mesh, tab, m, rng_key, step, cfg, dt)
 
 
-def _cycle_aligned(mesh: TetMesh, tab, m, rng_key, step, cfg, dt,
-                   lane_offset0=0):
+def _cycle_aligned(mesh: TetMesh, tab, m, rng_key, step, cfg, dt):
     n = m.shape[0]
     nb = n // BLOCK
 
@@ -128,8 +126,7 @@ def _cycle_aligned(mesh: TetMesh, tab, m, rng_key, step, cfg, dt,
         vx, vy, vz = m[:, V0], m[:, V0 + 1], m[:, V0 + 2]
     if cfg.use_brownian:
         sigma = jnp.sqrt(2.0 * cfg.diffusion_coeff * dt).astype(m.dtype)
-        xi = _brownian_noise(rng_key, step, n, m.dtype, cfg,
-                             lane_offset=lane_offset0)
+        xi = _brownian_noise(rng_key, step, n, m.dtype, cfg)
         dx = dx + alf * sigma * xi[:, 0]
         dy = dy + alf * sigma * xi[:, 1]
         dz = dz + alf * sigma * xi[:, 2]
@@ -153,8 +150,8 @@ def _cycle_aligned(mesh: TetMesh, tab, m, rng_key, step, cfg, dt,
     # flags the dust; such lanes ride the rare stage, whose barycentric
     # safety net (cfg.convex_bary_fix) re-locates or reflects/escapes
     # them exactly like the simple engine's full-batch pass.
-    # explicit per-component products (same association as the pallas
-    # kernel's lane math — einsum's reduction order is not bit-stable)
+    # explicit per-component products (einsum's reduction order is not
+    # bit-stable)
     fd0 = (
         nrm0[:, :, 0] * p0[:, None, 0]
         + nrm0[:, :, 1] * p0[:, None, 1]
@@ -163,6 +160,24 @@ def _cycle_aligned(mesh: TetMesh, tab, m, rng_key, step, cfg, dt,
     )
     outside0 = alive & (jnp.max(fd0, axis=-1) > convex_ops.TOL)
     crossing = alive & ((slot0 >= 0) | outside0)
+    # end-point guard: the tracer cannot see an exit it starts on (dT = 0
+    # fails its tol < dT test) nor one already behind its march point near
+    # an edge, so a lane resolved inline could end outside its tet.  The
+    # simple engine's barycentric pass relocates such lanes; here they
+    # ride the rare stage, whose tracer + barycentric pass match it.
+    guard = cfg.reflect_wall and cfg.convex_bary_fix
+
+    def ends_outside(nrm, dpl):
+        fd = (
+            nrm[:, :, 0] * ex[:, None]
+            + nrm[:, :, 1] * ey[:, None]
+            + nrm[:, :, 2] * ez[:, None]
+            - dpl
+        )
+        return jnp.max(fd, axis=-1) > convex_ops.TOL
+
+    if guard:
+        crossing = crossing | (alive & ends_outside(nrm0, dpl0))
 
     # --- inline hop-1 (phase 2): the dominant crosser case is a single
     # interior face crossing (``traceIntet`` hop into the neighbor, then
@@ -188,6 +203,8 @@ def _cycle_aligned(mesh: TetMesh, tab, m, rng_key, step, cfg, dt,
             nrm1, dpl1, nbr1, p1, p_end - p1, nbr1 == tet[:, None]
         )
         res2 = interior & (slot1 < 0)          # segment ends in the neighbor
+        if guard:
+            res2 = res2 & ~ends_outside(nrm1, dpl1)
 
     # inline resolution: final pos = segment end; hop-1 lanes refresh
     # tet/row from the gather.  Unresolved crossers keep their START in
@@ -216,11 +233,12 @@ def _cycle_aligned(mesh: TetMesh, tab, m, rng_key, step, cfg, dt,
         axis=1,
     )
     disp = jnp.stack([dx, dy, dz], axis=1)
-    return _rare_stage(mesh, tab, m, disp, pending, cfg, n, nb)
+    with jax.named_scope("rare_stage"):
+        return _rare_stage(mesh, tab, m, disp, pending, cfg, n, nb)
 
 
 def _make_run_lanes(mesh: TetMesh, tab, cfg):
-    """Arena lane resolver shared by the convex rare-stage variants."""
+    """Arena lane resolver of the convex rare stage."""
 
     def run_lanes(mc, dsub, lanes_act):
         """Resolve compacted lanes with the tested simple-path sequence
@@ -269,7 +287,7 @@ def _make_run_lanes(mesh: TetMesh, tab, cfg):
 
 def _rare_stage(mesh: TetMesh, tab, m, disp, pending, cfg, n, nb):
     """Block-compacted resolution of pending convex lanes via the tested
-    simple-path tracer; shared by the jnp and packed stream paths."""
+    simple-path tracer."""
     run_lanes = _make_run_lanes(mesh, tab, cfg)
 
     # rare stage: identical block scheme to fused._mega_cycle_aligned,
@@ -290,9 +308,8 @@ def _rare_stage(mesh: TetMesh, tab, m, disp, pending, cfg, n, nb):
         pend2 = pending.reshape(nb, BLOCK)
         bpend = jnp.any(pend2, axis=1)
         nbp = jnp.sum(bpend.astype(jnp.int32))
-        # both compaction levels via SORT, not nonzero (whose size= index
-        # materialization lowers to a scalar-memory scatter-add; see
-        # fused.py's rare stage for the measured numbers)
+        # both compaction levels via SORT of iota-where-pending, as in
+        # fused.py's rare stage
         blk_iota = lax.broadcasted_iota(jnp.int32, (nb, 1), 0)[:, 0]
         bidx = lax.sort(jnp.where(bpend, blk_iota, nb))[:capb]
         safe_b = jnp.minimum(bidx, nb - 1)
@@ -322,134 +339,3 @@ def _rare_stage(mesh: TetMesh, tab, m, disp, pending, cfg, n, nb):
         (m, disp, pending, jnp.zeros((), jnp.int32)),
     )
     return m
-
-
-def _rare_stage_packed(mesh, tab, m_rm, disp, pending, cfg, n, nb):
-    """:_rare_stage: on the packed [n/4, 128] carry (an 8-lane block is 2
-    consecutive packed rows, so all regroupings are row-major reshapes;
-    same scheme as fused._rare_stage_packed)."""
-    from .fused import BLOCK as _B
-
-    run = _make_run_lanes(mesh, tab, cfg)
-
-    capb = min(max(int(nb * cfg.walk_capacity_frac), 32), nb)
-    nl = capb * _B
-    cap_l = -(-max(int(nl * getattr(cfg, 'arena_lane_frac', 0.25)), 64) // 8) * 8
-    max_rounds = -(-n // cap_l) + -(-nb // capb)
-
-    def rare_cond(carry):
-        m_rm, disp, pending, r = carry
-        return (r < max_rounds) & jnp.any(pending)
-
-    def rare_round(carry):
-        m_rm, disp, pending, r = carry
-        m3 = m_rm.reshape(nb, 2, 128)
-        # disp is PACKED [n/4, 16] (lane l at row l//4, col 4*(l%4)+c) —
-        # 8-lane blocks are 2 consecutive rows, row-major relabel only
-        d3 = disp.reshape(nb, 2, 16)
-        pend2 = pending.reshape(nb, _B)
-        bpend = jnp.any(pend2, axis=1)
-        nbp = jnp.sum(bpend.astype(jnp.int32))
-        blk_iota = lax.broadcasted_iota(jnp.int32, (nb, 1), 0)[:, 0]
-        bidx = lax.sort(jnp.where(bpend, blk_iota, nb))[:capb]
-        safe_b = jnp.minimum(bidx, nb - 1)
-        mb = m3[safe_b].reshape(nl, WIDTH)
-        db = d3[safe_b].reshape(nl, 4)
-        lane_b = lax.broadcasted_iota(jnp.int32, (capb, _B), 0)
-        inrange = lane_b < jnp.minimum(nbp, capb)
-        pendb = pend2[safe_b] & inrange
-        lanes_act = pendb.reshape(-1)
-        lane_iota = lax.broadcasted_iota(jnp.int32, (nl, 1), 0)[:, 0]
-        skey = lax.sort(jnp.where(lanes_act, lane_iota, nl))
-        idxl = skey[:cap_l]
-        sub = mb[jnp.minimum(idxl, nl - 1)]
-        dsub = db[jnp.minimum(idxl, nl - 1)][:, :3]
-        sub = run(sub, dsub, idxl < nl)
-        mb = mb.at[idxl].set(sub, mode="drop")
-        thresh = skey[cap_l - 1]
-        handled = lanes_act & (lane_iota <= jnp.minimum(thresh, nl - 1))
-        m3 = m3.at[bidx].set(mb.reshape(capb, 2, 128), mode="drop")
-        pend2 = pend2.at[bidx].set(
-            pendb & ~handled.reshape(capb, _B), mode="drop"
-        )
-        return m3.reshape(n // 4, 128), disp, pend2.reshape(n), r + 1
-
-    m_rm, _, _, _ = lax.while_loop(
-        rare_cond, rare_round,
-        (m_rm, disp, pending, jnp.zeros((), jnp.int32)),
-    )
-    return m_rm
-
-
-def mega_cycle_packed(mesh: TetMesh, tab, m_rm, rng_key, step, cfg, dt,
-                      lane_offset0=0):
-    """One convex sub-step on the packed [n/4, 128] carry (pallas fast
-    path; caller guarantees the envelope via
-    fused_pallas.convex_packed_supported and n % PACK_LANES == 0).
-
-    ``cfg.cycle_chunks > 1`` runs the cycle in sub-batches (one lax.scan
-    body over equal chunks, same scheme as fused.mega_cycle_packed).
-    Beyond the 10M-scale gather-rate fix, chunking is what restores the
-    cx TABLE's S(1) fast-memory placement at >=512k lanes: the full-batch
-    [n,24] gather output otherwise wins the ~128 MB VMEM budget contest
-    (see fused_pallas.convex_packed_supported).  Bit-identical to
-    unchunked: noise is drawn once for the full batch and sliced."""
-    from . import fused_pallas
-
-    n = m_rm.shape[0] * 4
-    nb = n // BLOCK
-    chunks = max(int(getattr(cfg, "cycle_chunks", 1)), 1)
-    pk = fused_pallas.PACK_LANES
-    per = -(-(n // pk) // chunks) * pk
-    if chunks > 1 and per < n and per >= pk:
-        inoise = fused_pallas._use_inkernel_noise(cfg)
-        noise = (
-            _brownian_noise(rng_key, step, n, m_rm.dtype, cfg,
-                            lane_offset=lane_offset0)
-            if (cfg.use_brownian and not inoise) else None
-        )
-
-        def chunk_cycle(m_rm_c, off, noise_c, nl):
-            mc, dsp, pend = fused_pallas.convex_pre_rare_cycle_packed(
-                mesh, tab, m_rm_c, rng_key, step, cfg, dt,
-                noise=noise_c, lane_offset=off,
-            )
-            return _rare_stage_packed(
-                mesh, tab, mc, dsp, pend, cfg, nl, nl // BLOCK
-            )
-
-        k_full = n // per
-        rem = n - k_full * per
-        m_full = m_rm[: k_full * per // 4].reshape(
-            k_full, per // 4, m_rm.shape[1]
-        )
-        offs = jnp.arange(k_full, dtype=jnp.int32) * per + lane_offset0
-        if noise is not None:
-            nz_full = noise[: k_full * per].reshape(k_full, per, 3)
-
-            def body(_, x):
-                mi, oi, ni = x
-                return None, chunk_cycle(mi, oi, ni, per)
-
-            _, out = lax.scan(body, None, (m_full, offs, nz_full))
-        else:
-
-            def body(_, x):
-                mi, oi = x
-                return None, chunk_cycle(mi, oi, None, per)
-
-            _, out = lax.scan(body, None, (m_full, offs))
-        out = out.reshape(k_full * per // 4, m_rm.shape[1])
-        if rem:
-            tail = chunk_cycle(
-                m_rm[k_full * per // 4 :],
-                jnp.int32(k_full * per) + lane_offset0,
-                None if noise is None else noise[k_full * per :],
-                rem,
-            )
-            out = jnp.concatenate([out, tail], axis=0)
-        return out
-    m_rm, disp, pending = fused_pallas.convex_pre_rare_cycle_packed(
-        mesh, tab, m_rm, rng_key, step, cfg, dt, lane_offset=lane_offset0
-    )
-    return _rare_stage_packed(mesh, tab, m_rm, disp, pending, cfg, n, nb)

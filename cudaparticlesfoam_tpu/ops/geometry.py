@@ -2,8 +2,7 @@
 
 Re-implements the semantics of the reference's device geometry library
 (``third_party/RTXAdvect/cuda/DeviceTetMesh.cuh:82-211``) as vectorizable
-functional ops.  These are used both by the jitted XLA compute path and
-inside Pallas kernels (they are plain ``jnp`` expressions).
+functional ops (plain ``jnp`` expressions that XLA fuses).
 
 All functions operate on arrays whose last dimension is 3 (points) and
 broadcast over leading dimensions, so they can be applied per-particle,
@@ -13,6 +12,7 @@ per-tet, or per-(particle, face) without ``vmap`` ceremony.
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 
 def dot3(a, b):
@@ -56,8 +56,7 @@ def tet_edge_matrix(a, b, c, d):
 
 def invert3x3(m):
     """Closed-form inverse of a 3x3 matrix (batched over leading dims)."""
-    # Cofactor/adjugate form; avoids linalg solve so it lowers cleanly in
-    # Pallas and keeps everything on the VPU.
+    # Cofactor/adjugate form: pure elementwise math, no linalg solve.
     a00, a01, a02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     a10, a11, a12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     a20, a21, a22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
@@ -87,7 +86,8 @@ def bary_from_tinv(p, a, tinv):
     3x3 determinants.
     """
     rel = p - a
-    wbcd = jnp.einsum("...ij,...j->...i", tinv, rel)
+    # full f32 products: a TF32 contraction would blur the sign tests
+    wbcd = jnp.einsum("...ij,...j->...i", tinv, rel, precision=lax.Precision.HIGHEST)
     wa = 1.0 - jnp.sum(wbcd, axis=-1, keepdims=True)
     return jnp.concatenate([wa, wbcd], axis=-1)
 

@@ -1,6 +1,6 @@
 """Domain-decomposed (sharded) incompressible flow solve.
 
-The TPU-native answer to the reference's MPI fluid decomposition
+The XLA answer to the reference's MPI fluid decomposition
 (``decomposePar`` with the ``simple``/``hierarchical`` method +
 ``mpirun -np 4 cudaParticlesPimpleFoam -parallel``,
 ``tutorials/.../TJunction/Allrun-parallel:10-11``,
@@ -12,7 +12,7 @@ one block plus a one-cell ghost layer, and the PIMPLE step runs under
 
 * ``lax.ppermute`` halo exchange — one directed round per decomposed-
   axis direction — refreshing ghost-cell values before any operator
-  that reads neighbour cells (the collectives ride ICI), and
+  that reads neighbour cells (collectives scheduled by XLA), and
 * ``lax.psum`` for the global reductions (CG dot products, residuals,
   continuity).
 
@@ -847,7 +847,8 @@ def make_sharded_pimple(smesh: ShardedFlowMesh, cfg, device_mesh: Mesh,
             w = maskf * fvo_mask * m_s.vol[0]
             d = fvo_par[:3]
             vz = lax.psum(jnp.sum(w), axis) + 1e-300
-            ubar_star = lax.psum(jnp.sum(w * (uu @ d)), axis) / vz
+            ubar_star = lax.psum(jnp.sum(
+                w * jnp.dot(uu, d, precision=lax.Precision.HIGHEST)), axis) / vz
             rau_ave = lax.psum(jnp.sum(w * rau), axis) / vz
             dgrad = fvo_par[4] * (fvo_par[3] - ubar_star) / rau_ave
             uu = uu + (maskf * fvo_mask * rau * dgrad)[:, None] * d[None, :]

@@ -3,17 +3,17 @@
 The reference *shrinks* to one GPU: every rank gathers its mesh and fields
 to the MPI master, which owns all particles and the only CUDA context
 (``src/initCuda.H:209-270,322``; per step only U is re-gathered,
-``src/advect.H:62-67``).  The TPU design inverts this:
+``src/advect.H:62-67``).  This design inverts that:
 
 * **Particle DP (this module)** — particles are independent; shard them
   across the device mesh axis ``"p"`` and replicate the tet mesh.  Zero
   per-step communication; diagnostics reduce with ``psum``.  This is the
-  production layout whenever the mesh fits per chip (a 1M-tet walk table is
-  ~130 MB in f32 — comfortably HBM-resident on every chip of a v5e slice).
+  production layout whenever the mesh fits per device (a 1M-tet walk
+  table is ~130 MB in f32).
 
 * **Spatial mesh partitioning** (:mod:`.partition`) — for meshes beyond
   HBM: tets spatially sharded, particles ride their shard, boundary
-  crossers migrate via ``all_to_all`` over ICI.
+  crossers migrate via ``all_to_all``.
 
 Implementation note: we use ``jax.sharding.NamedSharding`` constraints and
 let pjit/XLA propagate — the stepper itself is unchanged (single-program,
@@ -35,20 +35,20 @@ from ..stepper import StepConfig
 
 
 def make_device_mesh(n_devices: int | None = None, axis: str = "p") -> Mesh:
-    """1-D device mesh over the default backend; if it has too few devices,
-    fall back to the (virtual) CPU backend so multi-chip programs can be
-    dry-run on a single-chip host (xla_force_host_platform_device_count)."""
+    """1-D device mesh over the default backend's devices.  Asking for more
+    devices than the backend has is an error: a program meant for several
+    accelerators never falls back to CPU devices.  (CPU dry runs give the
+    CPU backend virtual devices with
+    ``--xla_force_host_platform_device_count``.)"""
     import numpy as np
 
     devs = jax.devices()
-    if n_devices is not None and len(devs) < n_devices:
-        try:
-            devs = jax.devices("cpu")
-        except RuntimeError:
-            pass
     if n_devices is not None:
         if len(devs) < n_devices:
-            raise ValueError(f"need {n_devices} devices, have {len(devs)}")
+            raise ValueError(
+                f"need {n_devices} {jax.default_backend()} devices, have "
+                f"{len(devs)}"
+            )
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis,))
 
@@ -116,59 +116,6 @@ def run_cycles_sharded(
     from ..stepper import _run_cycles_impl
 
     return _run_cycles_impl(tet_mesh, state, cfg, n_cycles, dt)
-
-
-def run_cycles_dp_shardmap(
-    dmesh: Mesh, tet_mesh: TetMesh, state: ParticleState, cfg: StepConfig,
-    n_cycles: int, dt=None, axis: str = "p",
-) -> ParticleState:
-    """:func:`run_cycles_sharded` via ``shard_map`` instead of GSPMD
-    propagation — the multi-device route for ``brownian_rng="rbg_kernel"``:
-    each shard calls the full stepper on its local slice with
-    ``lane_offset0 = shard_index * padded_local_n``, so the in-kernel
-    hardware-PRNG streams (and the XLA "rbg" fallback off the pallas
-    paths) are disjoint across shards under the replicated key.  When the
-    local lane count is already a multiple of ``fused_pallas.PACK_LANES``
-    the seed offsets coincide with a single-device run's block offsets,
-    so trajectories match single-device rbg_kernel runs bit-for-bit;
-    otherwise streams are merely disjoint (per-shard padding shifts the
-    offsets).  Explicit shard_map also guarantees the pallas kernels run
-    per-device (GSPMD has no partitioning rule for custom calls)."""
-    from jax import shard_map
-
-    from ..ops import fused_pallas
-    from ..stepper import _run_cycles_impl
-
-    ndev = dmesh.devices.size
-    n_local = -(-state.n_particles // ndev)
-    pad = (-n_local) % fused_pallas.PACK_LANES
-    n_pad = n_local + pad
-
-    state_specs = ParticleState(
-        pos=P(axis), vel=P(axis), disp=P(axis), tet_id=P(axis),
-        active=P(axis), rng_key=P(), step=P(),
-        n_particles=state.n_particles,
-    )
-    mesh_specs = jax.tree_util.tree_map(lambda _: P(), tet_mesh)
-
-    @partial(jax.jit, static_argnames=("cfg", "n_cycles"), donate_argnums=(1,))
-    def _run(tm, st, cfg, n_cycles, dt):
-        def body(tm_l, st_l):
-            st_l = dataclasses.replace(st_l, n_particles=n_local)
-            idx = jax.lax.axis_index(axis)
-            out = _run_cycles_impl(
-                tm_l, st_l, cfg, n_cycles, dt,
-                lane_offset0=idx.astype(jnp.int32) * jnp.int32(n_pad),
-            )
-            return dataclasses.replace(out, n_particles=state.n_particles)
-
-        return shard_map(
-            body, mesh=dmesh,
-            in_specs=(mesh_specs, state_specs),
-            out_specs=state_specs,
-        )(tm, st)
-
-    return _run(tet_mesh, state, cfg, n_cycles, dt)
 
 
 @jax.jit

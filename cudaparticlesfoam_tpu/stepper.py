@@ -23,6 +23,14 @@ from .ops import advect as advect_ops
 from .ops import locate as locate_ops
 
 
+BROWNIAN_RNGS = ("threefry", "rbg")
+
+# options of earlier versions whose only code paths were TPU kernels; a
+# config that still names one fails loudly instead of being ignored
+REMOVED_OPTIONS = ("hop_compact", "hop_compact_frac", "macro_cycles",
+                   "engine_impl")
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Static per-run knobs (hashable; changing them recompiles).
@@ -63,11 +71,9 @@ class StepConfig:
     # via fused._stage_velocity — simple engine elsewhere)
     integrator: str = "euler"
     # Brownian noise source (cached engine): "threefry" = counter-based
-    # jax.random, bit-identical to the simple engine; "rbg" = TPU hardware
-    # bit generator + Box-Muller, statistically equivalent and cheaper;
-    # "rbg_kernel" = the same construction from the hardware PRNG INSIDE
-    # the pallas stream kernel (fastest; single-device pallas paths only —
-    # elsewhere it degrades to "rbg")
+    # jax.random, bit-identical to the simple engine; "rbg" =
+    # lax.rng_bit_generator (Philox on the GPU) + Box-Muller, statistically
+    # equivalent and cheaper to generate
     brownian_rng: str = "threefry"
     # full-batch inline walk hops per sub-step before the compacted rare
     # stage takes over: 1 for low-CFL regimes (<~15% of particles cross a
@@ -79,37 +85,12 @@ class StepConfig:
     # batch, column math) before the rare stage; semantics identical to
     # bounce 1 of RTreflection (RTQuery.cu:92-186)
     inline_bounce: bool = True
-    # sub-batches per cycle (>=8M-particle runs: the full-batch hop
-    # gather's per-index cost grows with outstanding HBM loads; chunking
-    # restores the small-batch rate; bit-identical results)
+    # sub-batches per cycle on the bary cached engine (very large runs;
+    # bit-identical results)
     cycle_chunks: int = 1
-    # block-compacted inline-hop gather (packed pallas path, hops=1):
-    # gather neighbor rows only for 4-lane packed groups containing a
-    # crosser, instead of refetching every lane's row cache.  0 = off
-    # (full-batch masked gather), 4 = 4-lane groups.  Crossers in groups
-    # beyond the capacity overflow to the rare arena — never wrong, only
-    # slower; results are bit-identical either way (the arena walk
-    # re-derives the same hop endpoint).
-    hop_compact: int = 0
-    # gathered-group capacity as a fraction of n/4 (static shape); size
-    # it above the expected block-pending rate 1-(1-c)^4 for crossing
-    # fraction c (the headline's c=0.128 -> 0.42)
-    hop_compact_frac: float = 0.5
-    # macro-cycle fusion (packed pallas path): k sub-steps per mega
-    # round-trip — non-crossing lanes advance k steps entirely in VMEM
-    # and the hop-resolution machinery runs once per CROSSING instead of
-    # once per sub-step (fused_pallas.macro_cycle_packed).  1 = off;
-    # bit-identical to k per-cycle sub-steps.
-    macro_cycles: int = 1
     # set by the case drivers when absorbing (escape) patches exist so the
     # inline bounce checks bd_escape; the rare-stage reflector always does
     escape_faces: bool = False
-    # stream implementation for the cached engine's pre-rare-stage work:
-    # "auto" uses the hand-fused pallas kernels on TPU backends when the
-    # configuration allows (TetVelocity, inline_hops=1, no escape faces),
-    # "jnp" forces the XLA column-math path (the parity reference),
-    # "pallas" asserts the fast path is used (tests)
-    engine_impl: str = "auto"
     # safety net for convex mode: the reference's tracer cannot re-detect a
     # face once a particle sits a hair outside it (tol asymmetry,
     # ConvexQuery.cu:95), so corner-reflection dust can leak out of the
@@ -119,16 +100,10 @@ class StepConfig:
     convex_bary_fix: bool = True
 
     def __post_init__(self):
-        if self.hop_compact not in (0, 4):
+        if self.brownian_rng not in BROWNIAN_RNGS:
             raise ValueError(
-                f"hop_compact must be 0 (off) or 4 (4-lane groups), got "
-                f"{self.hop_compact!r} — other group widths are not "
-                f"implemented (the packed carry holds 4 lanes per row)"
-            )
-        if not 1 <= self.macro_cycles <= 8:
-            raise ValueError(
-                f"macro_cycles must be in 1..8 (phases ride f32 head rows"
-                f" and trips are unrolled), got {self.macro_cycles!r}"
+                f"brownian_rng must be one of {BROWNIAN_RNGS}, got "
+                f"{self.brownian_rng!r}"
             )
 
     def resolved_engine(self) -> str:
@@ -154,6 +129,23 @@ class StepConfig:
                 else "simple"
             )
         return self.engine
+
+
+_dataclass_init = StepConfig.__init__
+
+
+def _init_rejecting_removed(self, *args, **kwargs):
+    for name in REMOVED_OPTIONS:
+        if name in kwargs:
+            raise ValueError(
+                f"StepConfig option {name!r} was removed: it selected TPU "
+                f"kernels that no longer exist; the XLA engine needs no "
+                f"such setting"
+            )
+    _dataclass_init(self, *args, **kwargs)
+
+
+StepConfig.__init__ = _init_rejecting_removed
 
 
 def cycle(mesh: TetMesh, state: ParticleState, cfg: StepConfig, dt) -> ParticleState:
@@ -223,7 +215,6 @@ def cycle(mesh: TetMesh, state: ParticleState, cfg: StepConfig, dt) -> ParticleS
 
 def _run_cycles_impl(
     mesh: TetMesh, state: ParticleState, cfg: StepConfig, n_cycles: int, dt,
-    lane_offset0=0,
 ) -> ParticleState:
     dt = jnp.asarray(cfg.dt if dt is None else dt, dtype=state.dtype)
 
@@ -233,66 +224,17 @@ def _run_cycles_impl(
             # without with_convex_rows(mesh): simple engine
             engine = "simple"
         else:
-            from .ops import fused, fused_convex, fused_pallas
+            from .ops import fused, fused_convex
 
             tab = fused_convex.cx_table(mesh)
             m0 = fused_convex.pack_state(
                 mesh, tab, state.pos, state.vel, state.tet_id, state.active
             )
 
-            n_hops = max(int(getattr(cfg, "inline_hops", 1)), 0)
-            # auto engages the packed convex path only in its measured-good
-            # regime: >=1M lanes AND cycle_chunks >= 2 (~500k-1M-lane
-            # chunks keep the cx table S(1)-placed; unchunked or <=333k
-            # chunks run the stream gather 2x slower — see
-            # fused_pallas.convex_packed_supported).  suggest_tuning sets
-            # the chunks; explicit engine_impl overrides.
-            if fused_pallas.convex_packed_supported(mesh, cfg, n_hops) and (
-                getattr(cfg, "engine_impl", "auto")
-                in ("pallas", "pallas_packed")
-                or (
-                    m0.shape[0] >= 1_000_000
-                    and max(int(getattr(cfg, "cycle_chunks", 1)), 1) >= 2
-                )
-            ):
-                # packed-carry convex fast path (see the bary twin below);
-                # the pad rounds the block count to a chunk multiple so
-                # the scan tiles exactly (no ragged tail chunk)
-                n0 = m0.shape[0]
-                pk = fused_pallas.PACK_LANES
-                chunks = max(int(getattr(cfg, "cycle_chunks", 1)), 1)
-                blocks = -(-n0 // pk)
-                if chunks > 1:
-                    blocks = -(-blocks // chunks) * chunks
-                pad = blocks * pk - n0
-                if pad:
-                    m0 = jnp.pad(m0, ((0, pad), (0, 0)))
-                m_rm0 = m0.reshape(-1, 4 * fused_convex.WIDTH)
-
-                def body_cp(i, carry):
-                    m_rm, step = carry
-                    m_rm = fused_convex.mega_cycle_packed(
-                        mesh, tab, m_rm, state.rng_key, step, cfg, dt,
-                        lane_offset0=lane_offset0,
-                    )
-                    return m_rm, step + 1
-
-                m_rm, step = lax.fori_loop(
-                    0, n_cycles, body_cp, (m_rm0, state.step)
-                )
-                m = m_rm.reshape(-1, fused_convex.WIDTH)[:n0]
-                pos, vel, tet, act = fused.unpack_state(m)
-                return dataclasses.replace(
-                    state, pos=pos, vel=vel,
-                    disp=jnp.zeros_like(state.disp),
-                    tet_id=tet, active=act, step=step,
-                )
-
             def body(i, carry):
                 m, step = carry
                 m = fused_convex.mega_cycle(
-                    mesh, tab, m, state.rng_key, step, cfg, dt,
-                    lane_offset0=lane_offset0,
+                    mesh, tab, m, state.rng_key, step, cfg, dt
                 )
                 return m, step + 1
 
@@ -315,83 +257,9 @@ def _run_cycles_impl(
             mesh, state.pos, state.vel, state.tet_id, state.active, ly
         )
 
-        from .ops import fused_pallas
-
-        n_hops = max(int(getattr(cfg, "inline_hops", 1)), 0)
-        if (
-            fused_pallas.packed_supported(mesh, cfg, n_hops)
-            and (
-                m0.shape[0] >= fused_pallas.PACK_MIN_LANES
-                or getattr(cfg, "engine_impl", "auto") == "pallas_packed"
-            )
-        ):
-            # packed-carry fast path: the mega rides the whole sub-cycling
-            # loop as its row-major [n/4, 4W] bytes — one pack/unpack per
-            # run_cycles call instead of a layout copy pair per cycle.
-            # Lane count padded to a full pallas block: the in-kernel
-            # grouped unpack scatters a partial block's lanes out of range
-            # (fused_pallas.PACK_LANES docs).  Zero-padded lanes are
-            # benign: act=0, tet=0 with a zero row never goes pending.
-            # Under cycle_chunks > 1 the pad also rounds the BLOCK count
-            # up to a chunk multiple, so the scan tiles the mega exactly —
-            # a ragged tail otherwise costs a separately-compiled chunk
-            # plus full-mega concat copies every cycle (~7.6 ms/cycle at
-            # 10M lanes, round-5 profile); the pad's dead-lane compute is
-            # <= (chunks-1)/chunks of one block per chunk.
-            n0 = m0.shape[0]
-            pk = fused_pallas.PACK_LANES
-            chunks = max(int(getattr(cfg, "cycle_chunks", 1)), 1)
-            blocks = -(-n0 // pk)
-            if chunks > 1:
-                blocks = -(-blocks // chunks) * chunks
-            pad = blocks * pk - n0
-            if pad:
-                m0 = jnp.pad(m0, ((0, pad), (0, 0)))
-            m_rm0 = m0.reshape(-1, 4 * ly.width)
-
-            def body_p(i, carry):
-                m_rm, step = carry
-                m_rm = fused.mega_cycle_packed(
-                    mesh, m_rm, state.rng_key, step, cfg, dt,
-                    lane_offset0=lane_offset0,
-                )
-                return m_rm, step + 1
-
-            k_m = int(getattr(cfg, "macro_cycles", 1))
-            if k_m > 1 and fused_pallas.macro_supported(mesh, cfg, k_m):
-                # macro-cycle fusion: k sub-steps per mega round-trip;
-                # leftover cycles (n_cycles % k) run per-cycle
-                n_mac = n_cycles // k_m
-
-                def body_m(i, carry):
-                    m_rm, step = carry
-                    m_rm = fused.mega_macro_packed(
-                        mesh, m_rm, state.rng_key, step, cfg, dt,
-                        lane_offset0=lane_offset0,
-                    )
-                    return m_rm, step + k_m
-
-                m_rm, step = lax.fori_loop(
-                    0, n_mac, body_m, (m_rm0, state.step)
-                )
-                m_rm, step = lax.fori_loop(
-                    0, n_cycles - n_mac * k_m, body_p, (m_rm, step)
-                )
-            else:
-                m_rm, step = lax.fori_loop(
-                    0, n_cycles, body_p, (m_rm0, state.step)
-                )
-            m = m_rm.reshape(-1, ly.width)[:n0]
-            pos, vel, tet, act = fused.unpack_state(m)
-            return dataclasses.replace(
-                state, pos=pos, vel=vel, disp=jnp.zeros_like(state.disp),
-                tet_id=tet, active=act, step=step,
-            )
-
         def body(i, carry):
             m, step = carry
-            m = fused.mega_cycle(mesh, m, state.rng_key, step, cfg, dt,
-                                 lane_offset0=lane_offset0)
+            m = fused.mega_cycle(mesh, m, state.rng_key, step, cfg, dt)
             return m, step + 1
 
         m, step = lax.fori_loop(0, n_cycles, body, (m0, state.step))
@@ -415,7 +283,7 @@ def _run_cycles_impl(
 @partial(jax.jit, static_argnames=("cfg", "n_cycles"))
 def run_cycles(
     mesh: TetMesh, state: ParticleState, cfg: StepConfig, n_cycles: int,
-    dt=None, lane_offset0=0,
+    dt=None,
 ) -> ParticleState:
     """``n_cycles`` sub-steps as one compiled program.
 
@@ -426,20 +294,20 @@ def run_cycles(
     cache through the loop — one gather builds it, only face-crossers touch
     it after (see :mod:`.ops.fused`).
     """
-    return _run_cycles_impl(mesh, state, cfg, n_cycles, dt, lane_offset0)
+    return _run_cycles_impl(mesh, state, cfg, n_cycles, dt)
 
 
 @partial(jax.jit, static_argnames=("cfg", "n_cycles"), donate_argnums=(1,))
 def run_cycles_donated(
     mesh: TetMesh, state: ParticleState, cfg: StepConfig, n_cycles: int,
-    dt=None, lane_offset0=0,
+    dt=None,
 ) -> ParticleState:
     """:func:`run_cycles` with the input state DONATED: its buffers are
     reused for the outputs, halving the particle-state HBM footprint.  Use
     on hot paths that never touch the old state again (the case drivers,
     bench); tests that re-run from one seed state need :func:`run_cycles`.
     """
-    return _run_cycles_impl(mesh, state, cfg, n_cycles, dt, lane_offset0)
+    return _run_cycles_impl(mesh, state, cfg, n_cycles, dt)
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -458,6 +326,8 @@ def suggest_tuning(mesh: TetMesh, cfg: StepConfig, dt=None,
     ``walk_capacity_frac`` (rare-stage round buffer) to match the regime.
     Cheap (one host-side pass over the tet arrays at setup); exactness is
     never at stake — these knobs trade kernel launches vs buffer sizes.
+    The choice depends only on the mesh, the flow and the batch size,
+    never on the device.
     """
     import numpy as np
 
@@ -490,10 +360,12 @@ def suggest_tuning(mesh: TetMesh, cfg: StepConfig, dt=None,
     # mean tets crossed per sub-step (the 1.5 accounts for the Kuhn split's
     # internal diagonal faces being crossed more often than cell faces)
     crossings = float(np.mean(np.minimum(speed * dt / np.maximum(h, 1e-300), 50.0)) * 1.5)
-    # measured on v5e (tools/profile_cycle.py): at ~2.3 mean crossings the
-    # per-cycle cost keeps dropping through ~5-7 inline hops because every
-    # rare-stage round costs several kernel launches; at <0.2 crossings a
-    # single hop resolves ~95% of crossers
+    # The thresholds and fractions below were fitted on the engine's
+    # earlier accelerator and are not yet re-tuned on the H100.  The
+    # shape of the rule holds on any device: every rare-stage round is
+    # several kernel launches plus a loop-condition readback, so a
+    # high-crossing regime wants more full-batch inline hops, and at low
+    # crossing rates a single hop resolves nearly every crosser.
     if crossings < 0.4:
         hops, frac = 1, 1 / 16
     elif crossings < 0.8:
@@ -511,99 +383,21 @@ def suggest_tuning(mesh: TetMesh, cfg: StepConfig, dt=None,
     bd_frac = float(np.mean(np.any(meshlib.host_np(mesh, "tet_nbr") < 0, axis=1)))
     wall_rate = bd_frac * min(crossings, 1.0) * 0.5
     inline_bounce = cfg.reflect_wall and wall_rate > 0.01
-    # very large batches: sub-batch the cycle (measured on v5e: the
-    # full-batch hop gather's per-index cost grows with index count under
-    # HBM load-queue pressure).  The pallas stream engines degrade above
-    # ~1M indices (10M sweep: 5M chunks 382, 1.25M 191, 625k 181 ms) —
-    # target ~625k-lane chunks there; the jnp engine holds its rate to
-    # ~5M (344 -> 197 ms at 10M with 5M chunks).
-    from .ops import fused_pallas
-
+    # very large batches run the cycle as sub-batches of ~5M lanes
+    # (bit-identical; bounds the per-cycle temporaries)
     n_p = int(n_particles or 0)
-    pallas_tet = (
-        getattr(cfg, "locate_mode", "bary") == "bary"
-        and fused_pallas.supported(
-            mesh, dataclasses.replace(cfg, inline_hops=hops), hops
-        )
-    )
-    pallas_cx = (
-        getattr(cfg, "locate_mode", "bary") == "convex"
-        and fused_pallas.convex_packed_supported(
-            mesh, dataclasses.replace(cfg, inline_hops=hops), hops
-        )
-    )
-    if pallas_cx and n_p >= 1_000_000:
-        # packed convex: ~500k-1M-lane chunks keep the cx table S(1)-
-        # placed (measured: 1M k=2 18.5 ms vs k=1 38.3; smaller chunks
-        # lose the placement again) — see fused_convex.mega_cycle_packed
-        chunks = max(2, -(-n_p // 1_000_000))
-    else:
-        # pallas chunk target re-swept with hop_compact live (10M, hc=4):
-        # 625k-lane chunks 61.1M, 500k 63.1, ~417k 64.5, 312k 63.5 —
-        # the hc staging shrinks with the chunk, freeing S(1) budget
-        target = 420_000 if pallas_tet else 5_000_000
-        chunks = 1 if n_p <= 2_000_000 else max(1, round(n_p / target))
-    # block-compacted hop gather (packed path, hops=1): gather 2 neighbor
-    # rows per crosser-containing 4-lane group instead of refetching every
-    # lane — measured 13.22 -> 11.37 ms/cycle on the 1M headline (the
-    # full-batch gather is per-INDEX bound).  Third+ crossers per group
-    # overflow to the rare arena, so gate on a crossing rate where that
-    # overflow stays small (<~1% of lanes below c~0.35).
-    # CONVEX too since round 5: the round-4 "S(1) contest" dead end was an
-    # artifact of the ragged tail chunk (half the 1M batch ran a separate
-    # tail program + full-mega concat copies); with exact chunk tiling,
-    # hc=4 on the packed convex engine measured 15.07 -> 13.57-14.02
-    # ms/cycle at 1M (66 -> 71-74M steps/s, 49^3 and 55^3 meshes).
-    hop_compact = (
-        4
-        if (
-            (pallas_tet or (pallas_cx and n_p >= 1_000_000))
-            and hops == 1
-            and crossings < 0.35
-            and n_p >= fused_pallas.PACK_MIN_LANES
-        )
-        else 0
-    )
-    # gathered-group capacity: the measured optimum sits just ABOVE the
-    # actual pending-group rate and the cliff below it is steep (1M
-    # headline, rate ~0.42: frac 0.45 -> 9.03 ms, 0.42 -> 8.72, but
-    # 0.40 -> 12.12 — sub-capacity overflow floods the rare arena every
-    # cycle).  Scale the capacity with the ESTIMATED group-pending rate
-    # 1-(1-c)^4 at a 2x safety factor (the estimator is only good to
-    # ~2x and the cliff is one-sided), capped at the headline's 0.45:
-    # at LOW crossing rates the smaller gather is a large win (dt=0.01,
-    # c~2.6%: hcf 0.45 -> 8.84 ms, 0.25 -> 7.40, 0.15 -> 6.80 = 147M
-    # steps/s), while overshooting costs only the extra capacity.
-    if hop_compact:
-        grate = 1.0 - (1.0 - min(crossings, 1.0)) ** 4
-        hc_frac = min(0.45, max(0.15, 2.0 * grate + 0.02))
-    else:
-        hc_frac = cfg.hop_compact_frac
-    # rare-arena exact-stage capacity: the packed convex stream pends only
-    # ~0.6% of lanes (the inline hop-1 resolves ~95% of crossers, measured
-    # at the headline config), so a leaner per-round arena wins — every
-    # [cap_l,*] op inside the trace loop halves (1M: alf 0.25 -> 18.3 ms,
-    # 0.125 -> 15.9).  The same holds for the multihop bary regimes
-    # (tutorial scale, hops=4: 2.52 -> 2.29 ms/cycle, 39.8 -> 43.7M; the
-    # neighboring fracs 0.0625/0.5 and wf 0.125/0.1875 all measured
-    # worse).  The bary hc=4 path wants a leaner arena too, but its
-    # pending includes hop-compaction overflow and the undersize cliff
-    # is steep (headline sweep: alf 0.25 -> 9.09 ms, 0.21875 -> 8.73,
-    # 0.1875 -> 8.50 [x3 reproduced], 0.15625 -> 8.25, 0.125 -> 11.58);
-    # auto picks 0.1875 — one comfortable step above the cliff.
-    # hc=4 first: its pending includes hop-compaction overflow and the
-    # undersize cliff is steep in BOTH locate modes (bary headline sweep
-    # above; convex 1M: alf 0.125 -> 15.40 ms, 0.1875 -> 14.02)
-    if hop_compact:
-        arena_lf = 0.1875
-    elif pallas_cx or hops >= 2:
+    chunks = 1 if n_p <= 2_000_000 else max(1, round(n_p / 5_000_000))
+    # rare-arena exact-stage capacity: the convex stream and the
+    # multi-hop bary regimes pend under ~1% of lanes after the inline
+    # hops, so a leaner per-round arena shrinks every [cap_l,*] op inside
+    # the round loop; undersizing costs rounds, never correctness
+    if getattr(cfg, "locate_mode", "bary") == "convex" or hops >= 2:
         arena_lf = 0.125
     else:
         arena_lf = cfg.arena_lane_frac
     return dataclasses.replace(
         cfg, inline_hops=hops, walk_capacity_frac=frac,
         inline_bounce=inline_bounce, cycle_chunks=chunks,
-        hop_compact=hop_compact, hop_compact_frac=hc_frac,
         arena_lane_frac=arena_lf,
     )
 

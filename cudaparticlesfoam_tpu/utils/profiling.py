@@ -3,7 +3,7 @@
 Makes real what the reference left commented out: the per-phase
 performance report (``src/advect.H:186-203`` — BVH/Adv/Dfs/Qry/Rft/Mov/IO
 table with fractions) and the cudaEvent timers (``cuda/cudaHelpers.cuh:44-87``).
-On TPU the compute phases are fused into one program by design, so the
+The compute phases are fused into one program by design, so the
 table reports the pipeline stages that remain observable (mesh build,
 locator build, seeding, compute loop, I/O) plus optional deep op-level
 traces via ``jax.profiler``.

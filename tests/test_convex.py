@@ -144,115 +144,29 @@ def test_cached_convex_without_rows_falls_back(setup):
     np.testing.assert_array_equal(np.asarray(a.pos), np.asarray(b.pos))
 
 
-def test_packed_convex_logic_matches_jnp_interpret():
-    """Interpret-mode check of the packed convex cycle (grouped in-VMEM
-    pack/unpack + lean kernel CB + packed rare stage) against the jitted
-    jnp cached engine — discrete state exact, floats to fusion ulps (the
-    on-TPU test below is the strong bit-parity check)."""
-    import dataclasses as dc
-
-    import jax
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaparticlesfoam_tpu import StepConfig, box_mesh
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cached_convex_segment_starting_on_a_face(dtype):
+    """A segment that starts exactly on a face of its tet and leaves
+    through it has its exit at dT = 0, below the tracer's tolerance; the
+    cached engine must still relocate it, as the simple engine's
+    barycentric pass does."""
+    from cudaparticlesfoam_tpu import locate_seeds, replace_velocity
     from cudaparticlesfoam_tpu.mesh import with_convex_rows
-    from cudaparticlesfoam_tpu.ops import fused_convex
-    from cudaparticlesfoam_tpu.ops import locate as locate_ops
+    from cudaparticlesfoam_tpu.state import make_state, replace as rs
 
-    if jax.config.read("jax_enable_x64"):
-        jax.config.update("jax_enable_x64", False)
-        try:
-            return test_packed_convex_logic_matches_jnp_interpret()
-        finally:
-            jax.config.update("jax_enable_x64", True)
-
-    import jax.numpy as jnp
-
-    mesh = with_convex_rows(box_mesh(8, 8, 8))
-    tab = fused_convex.cx_table(mesh)
-    n = 8192
-    rng = np.random.default_rng(5)
-    pos = jnp.asarray(rng.uniform(0.5, 7.5, (n, 3)), jnp.float32)
-    loc = locate_ops.build_grid_locator(mesh)
-    tet = locate_ops.locate_seeds(mesh, loc, pos)
-    m0 = fused_convex.pack_state(
-        mesh, tab, pos, jnp.zeros((n, 3), jnp.float32), tet,
-        jnp.ones(n, bool))
-    key = jax.random.PRNGKey(1)
-    cfg = StepConfig(dt=0.4, diffusion_coeff=3e-3, locate_mode="convex",
-                     walk_capacity_frac=0.25, brownian_rng="rbg")
-    mj = np.asarray(jax.jit(
-        lambda m: fused_convex.mega_cycle(mesh, tab, m, key, 3, cfg, 0.4))(m0))
-    with pltpu.force_tpu_interpret_mode():
-        m_rm = fused_convex.mega_cycle_packed(
-            mesh, tab, m0.reshape(-1, 4 * fused_convex.WIDTH), key, 3,
-            cfg, 0.4)
-    mp = np.asarray(m_rm).reshape(-1, fused_convex.WIDTH)
-    np.testing.assert_array_equal(mj[:, 6], mp[:, 6])
-    np.testing.assert_array_equal(mj[:, 7], mp[:, 7])
-    np.testing.assert_allclose(mj[:, :6], mp[:, :6], atol=2e-6)
-
-    # chunked packed cycle (cycle_chunks=2, scan body) must be
-    # bit-identical to the unchunked packed cycle: two PACK_LANES blocks
-    m0w = jnp.concatenate([m0, m0], axis=0)
-    with pltpu.force_tpu_interpret_mode():
-        m_u = fused_convex.mega_cycle_packed(
-            mesh, tab, m0w.reshape(-1, 4 * fused_convex.WIDTH), key, 3,
-            cfg, 0.4)
-        m_c = fused_convex.mega_cycle_packed(
-            mesh, tab, m0w.reshape(-1, 4 * fused_convex.WIDTH), key, 3,
-            dc.replace(cfg, cycle_chunks=2), 0.4)
-    np.testing.assert_array_equal(np.asarray(m_u), np.asarray(m_c))
-
-
-def test_packed_convex_bit_parity_on_tpu():
-    """On-TPU: the packed convex path must reproduce the jnp cached
-    convex engine bit-for-bit (aligned + ragged lane counts)."""
-    import dataclasses as dc
-
-    import jax
-    import numpy as np
-    import pytest
-
-    dd = jax.config.jax_default_device
-    plat = dd.platform if dd is not None else jax.default_backend()
-    if plat == "cpu":
-        pytest.skip("pallas kernels need a TPU backend")
-
-    import jax.numpy as jnp
-
-    from cudaparticlesfoam_tpu import StepConfig, box_mesh, run_cycles
-    from cudaparticlesfoam_tpu.mesh import with_convex_rows
-    from cudaparticlesfoam_tpu.ops import locate as locate_ops
-    from cudaparticlesfoam_tpu import state as statelib
-
-    mesh = with_convex_rows(box_mesh(10, 10, 10))
-    for n, dt in ((4 * 8192, 0.15), (60_000, 0.5)):
-        rng = np.random.default_rng(9)
-        pos = jnp.asarray(rng.uniform(0.6, 9.4, (n, 3)), mesh.dtype)
-        st = statelib.make_state(pos)
-        loc = locate_ops.build_grid_locator(mesh)
-        st = dc.replace(st, tet_id=locate_ops.locate_seeds(mesh, loc, st.pos))
-        cfg = StepConfig(dt=dt, diffusion_coeff=2e-3, locate_mode="convex",
-                         walk_capacity_frac=0.25, brownian_rng="rbg")
-        out_j = run_cycles(mesh, st, dc.replace(cfg, engine_impl="jnp"), 10)
-        variants = [
-            dc.replace(cfg, engine_impl="pallas_packed", cycle_chunks=1),
-            dc.replace(cfg, engine_impl="pallas_packed", cycle_chunks=2),
-            # block-compacted hop gather (round-5 default at >=1M lanes):
-            # normal capacity + a tiny one forcing overflow into the rare
-            # arena — bit-identical either way
-            dc.replace(cfg, engine_impl="pallas_packed", cycle_chunks=2,
-                       hop_compact=4, hop_compact_frac=0.6),
-            dc.replace(cfg, engine_impl="pallas_packed", cycle_chunks=2,
-                       hop_compact=4, hop_compact_frac=0.02),
-        ]
-        for vcfg in variants:
-            out_p = run_cycles(mesh, st, vcfg, 10)
-            np.testing.assert_array_equal(
-                np.asarray(out_j.pos), np.asarray(out_p.pos))
-            np.testing.assert_array_equal(
-                np.asarray(out_j.vel), np.asarray(out_p.vel))
-            np.testing.assert_array_equal(
-                np.asarray(out_j.tet_id), np.asarray(out_p.tet_id))
+    mesh = box_mesh(3, 3, 3, dtype=np.dtype(dtype))
+    u = np.tile([0.1, -0.1, 0.0], (mesh.n_tets, 1))
+    mesh = with_convex_rows(replace_velocity(mesh, tet_vel=u))
+    loc = build_grid_locator(mesh)
+    # points on the x = y plane of a unit cube, each given the tet on the
+    # x < y side (found from a point nudged there), moving to x > y
+    p = np.array([[1.25, 1.25, 1.6], [0.5, 0.5, 0.3], [2.4, 2.4, 2.9]])
+    nudged = p + np.array([-1e-3, 1e-3, 0.0])
+    tet0 = locate_seeds(mesh, loc, jnp.asarray(nudged, mesh.dtype))
+    st = rs(make_state(jnp.asarray(p, mesh.dtype)), tet_id=tet0)
+    kw = dict(locate_mode="convex", dt=1.0, use_brownian=False)
+    a = run_cycles(mesh, st, StepConfig(engine="simple", **kw), 1)
+    b = run_cycles(mesh, st, StepConfig(engine="cached", **kw), 1)
+    assert (np.asarray(a.tet_id) != np.asarray(tet0)).all()
+    np.testing.assert_array_equal(np.asarray(b.tet_id), np.asarray(a.tet_id))
+    np.testing.assert_allclose(np.asarray(b.pos), np.asarray(a.pos), atol=1e-6)

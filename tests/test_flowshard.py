@@ -1,5 +1,5 @@
 """Domain-decomposed PIMPLE on the 8-virtual-CPU-device mesh must match
-the single-device solver to float64 tolerance (the TPU-native
+the single-device solver to float64 tolerance (the XLA
 decomposePar/mpirun equivalent, TJunction/Allrun-parallel:10-11)."""
 
 import os

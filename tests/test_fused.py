@@ -295,3 +295,155 @@ def test_fuzz_cached_vs_simple(setup):
             compare(mesh, st, n=n, atol=1e-9, **kw)
         except AssertionError as e:
             raise AssertionError(f"fuzz trial {trial} failed for {kw}") from e
+
+
+# ---------------------------------------------------------------------------
+# engine-agnostic checks (the mesh-side escape mask, the plain XLA engine
+# on every backend) and the cached-vs-simple matrix at both precisions
+# ---------------------------------------------------------------------------
+
+
+def test_jnp_fallback_runs_everywhere():
+    """The cached XLA engine runs on every backend, no kernel envelope."""
+    import dataclasses
+
+    from cudaparticlesfoam_tpu import state as statelib
+    from cudaparticlesfoam_tpu.ops import locate as locate_ops
+
+    mesh = box_mesh(4, 4, 4)
+    n = 512
+    rng = np.random.default_rng(7)
+    pos = jnp.asarray(rng.uniform(0.5, 3.5, (n, 3)), mesh.dtype)
+    st = statelib.make_state(pos)
+    loc = locate_ops.build_grid_locator(mesh)
+    st = dataclasses.replace(
+        st, tet_id=locate_ops.locate_seeds(mesh, loc, st.pos)
+    )
+    cfg = StepConfig(dt=0.02, diffusion_coeff=1e-4, inline_hops=1)
+    out = run_cycles(mesh, st, cfg, 5)
+    assert int(jnp.sum(out.tet_id < 0)) == 0
+
+
+def _escape_mesh(dtype=None):
+    """8^3 box whose +x boundary faces form an absorbing patch, with a
+    uniform +x wind."""
+    import dataclasses as dc
+
+    from cudaparticlesfoam_tpu.mesh import set_boundary_escape
+
+    mesh = box_mesh(8, 8, 8, dtype=dtype)
+    pts = np.asarray(mesh.points, np.float64)
+    ctr = pts[np.asarray(mesh.bd_tris)].mean(axis=1)
+    patch = np.where(ctr[:, 0] > 7.999, 1, 0).astype(np.int32)
+    mesh = dc.replace(mesh, bd_patch=jnp.asarray(patch))
+    mesh = set_boundary_escape(mesh, [1])
+    u = np.zeros((mesh.n_tets, 3))
+    u[:, 0] = 1.5
+    return replace_velocity(mesh, tet_vel=u)
+
+
+def test_escape_mask_baked_into_rows():
+    """set_boundary_escape writes the per-tet 4-bit escape mask into
+    tet_row col 19, consistent with a bd_escape gather."""
+    mesh = _escape_mesh()
+    nbr = np.asarray(mesh.tet_nbr)
+    esc = np.asarray(mesh.bd_escape)
+    bd = np.clip(-nbr - 1, 0, mesh.n_bd_faces - 1)
+    want = ((nbr < 0) & esc[bd]).astype(np.int64) @ np.array([1, 2, 4, 8])
+    got = np.asarray(mesh.tet_row[:, 19]).astype(np.int64)
+    np.testing.assert_array_equal(want, got)
+    assert want.max() > 0   # the fixture really has absorbing faces
+
+
+def test_pk_escape_mask_baked_both_orders():
+    """set_boundary_escape bakes the same 4-bit mask into tet_row col 19
+    and tet_row_pk col 28, regardless of whether with_pk_rows ran before
+    or after it."""
+    from cudaparticlesfoam_tpu.mesh import set_boundary_escape, with_pk_rows
+
+    mesh0 = box_mesh(3, 3, 3)
+    m1 = set_boundary_escape(with_pk_rows(mesh0), [0])
+    m2 = with_pk_rows(set_boundary_escape(mesh0, [0]))
+    a1 = np.asarray(m1.tet_row_pk[:, 28])
+    a2 = np.asarray(m2.tet_row_pk[:, 28])
+    np.testing.assert_array_equal(a1, np.asarray(m1.tet_row[:, 19]))
+    np.testing.assert_array_equal(a1, a2)
+    assert a1.max() > 0          # the box has boundary tets on patch 0
+
+
+def _matrix_case(variant, dtype):
+    """(mesh, state, StepConfig kwargs) for one cached-vs-simple case."""
+    from cudaparticlesfoam_tpu.mesh import with_convex_rows, with_pk_rows
+
+    if variant == "pk_escape":
+        mesh = with_pk_rows(_escape_mesh(dtype))
+        kw = dict(velocity_interp="VertexVelocity", escape_faces=True,
+                  dt=0.05, diffusion_coeff=1e-3)
+        lo, hi = (0.5,) * 3, (7.5,) * 3
+    else:
+        mesh = box_mesh(6, 6, 6, dtype=dtype)
+        pts = np.asarray(mesh.points, dtype=np.float64)
+        cen = pts[np.asarray(mesh.tets)].mean(axis=1)
+        outward = cen - 3.0
+        outward /= np.linalg.norm(outward, axis=1, keepdims=True) + 1e-12
+        mesh = replace_velocity(mesh, tet_vel=outward * 1.5)
+        lo, hi = (0.5,) * 3, (5.5,) * 3
+        kw = {
+            "bary": dict(dt=0.08, diffusion_coeff=1e-3),
+            "convex": dict(locate_mode="convex", dt=0.08,
+                           use_brownian=False),
+            "rk4": dict(integrator="rk4", dt=0.08, use_brownian=False),
+            "chunks": dict(cycle_chunks=3, dt=0.08, diffusion_coeff=1e-3),
+        }[variant]
+        if variant == "convex":
+            mesh = with_convex_rows(mesh)
+    loc = build_grid_locator(mesh)
+    st = seed_in_box(1024, lo, hi, method="threefry", dtype=dtype)
+    st = rs(st, tet_id=locate_seeds(mesh, loc, st.pos))
+    return mesh, st, kw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("variant",
+                         ["bary", "convex", "pk_escape", "rk4", "chunks"])
+def test_cached_matches_simple_matrix(variant, dtype):
+    """The cached engine against the plain simple engine, 20 cycles.
+
+    f64: identical tet ids and positions to 1e-9.  f32: the two engines
+    round in different orders, so a particle within a few ulps of a face
+    may land on the other side (or escape one step apart); the bound is
+    tet and active agreement >= 99% and positions within 1e-4 (box cells
+    are 1 unit) on the agreeing lanes."""
+    mesh, st, kw = _matrix_case(variant, np.dtype(dtype))
+    a = run_cycles(mesh, st, StepConfig(engine="simple", **kw), 20)
+    b = run_cycles(mesh, st, StepConfig(engine="cached", **kw), 20)
+    assert a.pos.dtype == np.dtype(dtype)
+    ta, tb = np.asarray(a.tet_id), np.asarray(b.tet_id)
+    # live = active and located: a lane that escapes in the last cycle is
+    # deactivated at once by the cached inline bounce, and by the next
+    # advect in the simple engine; both give it the same -(t+1) tet id
+    aa = np.asarray(a.active) & (ta >= 0)
+    ab = np.asarray(b.active) & (tb >= 0)
+    if dtype == "float64":
+        np.testing.assert_array_equal(aa, ab)
+        np.testing.assert_array_equal(ta, tb)
+        np.testing.assert_allclose(np.asarray(a.pos), np.asarray(b.pos),
+                                   atol=1e-9)
+    else:
+        same = (ta == tb) & (aa == ab)
+        assert same.mean() >= 0.99
+        np.testing.assert_allclose(np.asarray(a.pos)[same],
+                                   np.asarray(b.pos)[same], atol=1e-4)
+    if variant == "pk_escape":
+        # the wind really pushes lanes out through the absorbing patch
+        assert (~ab).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("variant",
+                         ["bary", "convex", "pk_escape", "rk4", "chunks"])
+def test_cached_matches_simple_matrix_gpu(variant, dtype):
+    """The same matrix on the GPU backend, with XLA's GPU fusion and the
+    card's own contraction precision."""
+    test_cached_matches_simple_matrix(variant, dtype)

@@ -2,7 +2,7 @@
 
 The reference applies fv::options in its momentum equation
 (``applications/cudaParticlesPimpleFoam/UEqn.H:11,17,23``, ``pEqn.H:66``);
-these tests pin the TPU-native equivalents (models/fvoptions.py) against
+these tests pin the XLA equivalents (models/fvoptions.py) against
 analytic channel solutions and the sharded step against the single-device
 one.
 """

@@ -139,3 +139,96 @@ def test_vertex_velocity_interp(box, grid):
     np.testing.assert_allclose(
         np.asarray(out.pos - st.pos), 1e-3 * np.asarray(st.pos), atol=1e-10
     )
+
+
+# ---------------------------------------------------------------------------
+# option surface and tuning
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(hop_compact=4),
+    dict(hop_compact_frac=0.45),
+    dict(macro_cycles=2),
+    dict(engine_impl="pallas_packed"),
+    dict(brownian_rng="rbg_kernel"),
+], ids=lambda kw: next(iter(kw)))
+def test_removed_option_raises(kw):
+    """Options whose only paths were deleted kernels fail loudly, naming
+    the option, through the constructor and through dataclasses.replace."""
+    import dataclasses
+
+    name = next(iter(kw))
+    with pytest.raises(ValueError, match=name):
+        StepConfig(**kw)
+    with pytest.raises(ValueError, match=name):
+        dataclasses.replace(StepConfig(), **kw)
+
+
+@pytest.mark.parametrize("dt,hops,frac", [
+    (0.1, 1, 1 / 16),     # ~0.15 crossings per sub-step
+    (0.4, 2, 1 / 8),      # ~0.6
+    (0.8, 4, 1 / 4),      # ~1.2
+    (2.0, 8, 1 / 4),      # ~3: capped at 8 inline hops
+])
+def test_suggest_tuning_crossing_regimes(box, dt, hops, frac):
+    """Unit-volume hexes (h = 1) in a uniform unit wind: the expected
+    crossings are 1.5 * dt, and the rule maps them to inline hops and the
+    rare-stage round buffer; multi-hop regimes get the lean arena."""
+    from cudaparticlesfoam_tpu.stepper import suggest_tuning
+
+    mesh = replace_velocity(box, tet_vel=np.tile([1.0, 0.0, 0.0],
+                                                 (box.n_tets, 1)))
+    cfg = suggest_tuning(mesh, StepConfig(dt=dt, use_brownian=False),
+                         n_particles=1000)
+    assert cfg.inline_hops == hops
+    assert cfg.walk_capacity_frac == pytest.approx(frac)
+    assert cfg.cycle_chunks == 1
+    assert cfg.arena_lane_frac == (0.125 if hops >= 2 else 0.25)
+
+
+@pytest.mark.parametrize("locate_mode,n,chunks,arena", [
+    ("bary", 1_000_000, 1, 0.25),
+    ("bary", 12_000_000, 2, 0.25),
+    ("convex", 1_000_000, 1, 0.125),
+])
+def test_suggest_tuning_batch_and_mode(box, locate_mode, n, chunks, arena):
+    """Large batches are cut into ~5M-lane sub-batches; the convex
+    stream pends few lanes, so it gets the lean arena at any size."""
+    from cudaparticlesfoam_tpu.stepper import suggest_tuning
+
+    mesh = replace_velocity(box, tet_vel=np.tile([1.0, 0.0, 0.0],
+                                                 (box.n_tets, 1)))
+    cfg = suggest_tuning(
+        mesh, StepConfig(dt=0.1, use_brownian=False, locate_mode=locate_mode),
+        n_particles=n,
+    )
+    assert cfg.cycle_chunks == chunks
+    assert cfg.arena_lane_frac == arena
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rbg_noise_moments(dtype):
+    """brownian_rng='rbg' (lax.rng_bit_generator + Box-Muller): standard
+    normal moments, independent axes, a fresh draw per step, and a
+    different stream per key."""
+    from cudaparticlesfoam_tpu.ops import fused
+
+    cfg = StepConfig(brownian_rng="rbg")
+    key = jax.random.PRNGKey(3)
+    n = 200_000
+    xi = np.asarray(fused._brownian_noise(key, 5, n, jnp.dtype(dtype), cfg))
+    assert xi.shape == (n, 3) and xi.dtype == np.dtype(dtype)
+    assert np.isfinite(xi).all()
+    se = 5.0 / np.sqrt(n)      # five standard errors
+    np.testing.assert_allclose(xi.mean(axis=0), 0.0, atol=se)
+    np.testing.assert_allclose(xi.var(axis=0), 1.0, atol=5.0 * np.sqrt(2.0 / n))
+    c = np.corrcoef(xi.T)
+    np.testing.assert_allclose(c[np.triu_indices(3, 1)], 0.0, atol=se)
+    # 4th moment of a normal is 3
+    np.testing.assert_allclose((xi ** 4).mean(axis=0), 3.0, atol=0.1)
+    xi6 = np.asarray(fused._brownian_noise(key, 6, n, jnp.dtype(dtype), cfg))
+    assert abs(np.corrcoef(xi[:, 0], xi6[:, 0])[0, 1]) < se
+    xk = np.asarray(fused._brownian_noise(jax.random.PRNGKey(4), 5, n,
+                                          jnp.dtype(dtype), cfg))
+    assert abs(np.corrcoef(xi[:, 0], xk[:, 0])[0, 1]) < se

@@ -1,11 +1,10 @@
 """Gather rate vs table size, engine-like conditions.
 
-The headline cycle's wall is ONE full-batch [n]-index gather from the
-[nt, 20] f32 walk table (80 MB at 1M tets) — measured ~8 ns/idx when the
-table is S(1)-placed.  The round-3 microbench said sub-32 MB tables
-gather ~2.2x faster per index (chained-dependency harness), which is the
-premise of the quantized-classify-table plan (VERDICT r3 item 1).  This
-tool re-measures under ENGINE-like conditions: the gather rides a
+The headline cycle's inline hop is ONE full-batch [n]-index gather from
+the [nt, 20] f32 walk table (80 MB at 1M tets).  Whether a narrower
+table (one that fits the 50 MB L2) gathers faster per index is the
+premise of a quantized-classify-table plan.  This tool measures that
+under ENGINE-like conditions: the gather rides a
 fori_loop over cycles with the table as a jit parameter, indices are a
 mix of self-refetch + random-neighbor like the masked hop gather, and
 the output feeds a cheap reduction carried to the next iteration (so the
